@@ -2,17 +2,21 @@
 
 Reproduces the reference's only performance metric — the MRays/s HUD
 (`HalogenRenderFeature.cs:97`, `HalogenDebugUI.cs:59-76`: rays per frame =
-SPP * W * H, i.e. primary rays dispatched) — as a timed harness on real
-hardware. Baseline to beat: 100 Mrays/s/chip (BASELINE.json north star).
+SPP * W * H, i.e. primary rays dispatched) — as a timed harness on an
+NVIDIA GPU:
 
-Driver-robustness contract (round-2 lesson: rc=124 timeout lost the
-round's perf artifact): the forward JSON line is printed AND flushed the
-moment the forward loop finishes; the fwd+bwd section then runs under an
-internal time budget (BENCH_TIME_BUDGET seconds, default 480) enforced
-with SIGALRM and, if it completes, a second enriched JSON line is
-printed. Both lines share the same schema, so the driver can parse
-either the first or the last line. A persistent JAX compilation cache
-(.jax_cache/) makes repeat runs compile-free.
+    python bench.py            # full configurations; GPU only
+    python bench.py --quick    # small configurations, any device
+
+Every JSON line names the device it ran on (platform, device kind, device
+count, and the card's name and power limit). Without --quick the script
+refuses to run off the GPU: a CPU time is not a device number.
+
+The forward JSON line is printed and flushed the moment the forward loop
+finishes; the fwd+bwd and glass_dragon sections then run under an internal
+time budget (BENCH_TIME_BUDGET seconds, default 480) enforced with
+SIGALRM, each printing an enriched line with the same schema. The
+persistent compilation cache lives where `utils/compile_cache.py` says.
 """
 
 import argparse
@@ -23,19 +27,16 @@ import sys
 import time
 
 
-BASELINE_MRAYS = 100.0  # BASELINE.json north_star: >=100 Mrays/s/chip fwd
-
-
 class _BudgetExceeded(Exception):
     pass
 
 
-def _emit(mrays, extra):
+def _emit(mrays, device, extra):
     print(json.dumps({
         "metric": "fwd_throughput_cornell",
-        "value": round(mrays, 3),
+        "value": mrays,
         "unit": "Mrays/s/chip",
-        "vs_baseline": round(mrays / BASELINE_MRAYS, 4),
+        "device": device,
         "extra": extra,
     }), flush=True)
 
@@ -53,23 +54,26 @@ def main():
     args = ap.parse_args()
     t_start = time.monotonic()
 
-    # Persistent compilation cache: the driver re-runs this script in a
-    # fresh process on the same chip; cached executables turn its ~4 min
-    # of compiles into seconds.
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             ".jax_cache")
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", cache_dir)
-
     import jax
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
     import halogen_tpu as ht
     from halogen_tpu.integrator.trace import render_frame
     from halogen_tpu.scene import cornell
+    from halogen_tpu.utils.compile_cache import enable_compile_cache
+    from halogen_tpu.utils.device import card_name_and_power_limit, \
+        device_info
 
-    on_cpu = jax.default_backend() == "cpu"
-    if args.quick or on_cpu:
+    device = device_info()
+    if device["platform"] != "gpu" and not args.quick:
+        print(f"bench.py: JAX's device is {device['platform']!r}, not a "
+              "GPU; pass --quick for a small run that times this device",
+              file=sys.stderr)
+        return 2
+    device["card"] = (card_name_and_power_limit()
+                      if device["platform"] == "gpu" else None)
+    enable_compile_cache()
+
+    if args.quick:
         width = args.width or 128
         spp = args.spp or 4
         frames = args.frames or 2
@@ -102,21 +106,22 @@ def main():
     mrays = rays / dt / 1e6
 
     # FIRST line: the official artifact, emitted before anything slow.
-    extras = {"fwd_bwd_throughput_cornell_256spp": None,
+    extras = {"config": f"{width}x{width}, {spp}spp, {bounces} bounces",
+              "fwd_bwd_throughput_cornell_256spp": None,
               "fwd_bwd_status": "pending",
               "glass_dragon_mrays": None,
               "glass_dragon_status": "pending"}
-    _emit(mrays, dict(extras))
+    _emit(mrays, device, dict(extras))
 
-    # --- fwd+bwd: BASELINE.json metric "Mrays/s/chip (fwd+bwd) at 256spp
-    # Cornell box" — one render_loss_grad step (forward render +
+    # --- fwd+bwd: Mrays/s/chip (fwd+bwd) at 256 spp on the Cornell box —
+    # one render_loss_grad step (forward render +
     # path-replay backward) timed per effective primary ray. Runs under
     # the remaining time budget; on SIGALRM the fwd line above stands.
     remaining = args.budget - (time.monotonic() - t_start)
     if remaining < 20:
         extras["fwd_bwd_status"] = "skipped_budget"
         extras["glass_dragon_status"] = "skipped_budget"
-        _emit(mrays, dict(extras))
+        _emit(mrays, device, dict(extras))
         return 0
 
     def _on_alarm(signum, frame):
@@ -127,7 +132,7 @@ def main():
     try:
         from halogen_tpu.diff.grad import render_loss_grad
 
-        if args.quick or on_cpu:
+        if args.quick:
             bwd_w, bwd_spp = 64, 4
         else:
             bwd_w, bwd_spp = 256, 256
@@ -140,7 +145,7 @@ def main():
         loss, grads = render_loss_grad(
             params, scene, camera, bwd_settings, target, jnp.uint32(0))
         jax.block_until_ready((loss, grads))  # compile + warm-up
-        bwd_frames = 1 if (args.quick or on_cpu) else 2
+        bwd_frames = 1 if args.quick else 2
         t0 = time.perf_counter()
         for f in range(bwd_frames):
             loss, grads = render_loss_grad(
@@ -150,16 +155,16 @@ def main():
         mrays_bwd = bwd_spp * bwd_w * bwd_w * bwd_frames / dt_bwd / 1e6
         signal.alarm(0)
         extras.update({
-            "fwd_bwd_throughput_cornell_256spp": round(mrays_bwd, 3),
+            "fwd_bwd_throughput_cornell_256spp": mrays_bwd,
             "fwd_bwd_unit": "Mrays/s/chip (fwd+bwd)",
             "fwd_bwd_config": f"{bwd_w}x{bwd_w}, {bwd_spp}spp, "
                               f"{bounces} bounces",
             "fwd_bwd_status": "ok",
         })
-        _emit(mrays, dict(extras))
+        _emit(mrays, device, dict(extras))
     except _BudgetExceeded:
         extras["fwd_bwd_status"] = "timeout_budget"
-        _emit(mrays, dict(extras))
+        _emit(mrays, device, dict(extras))
     finally:
         signal.alarm(0)
         signal.signal(signal.SIGALRM, old)
@@ -170,14 +175,14 @@ def main():
     remaining = args.budget - (time.monotonic() - t_start)
     if remaining < 20:
         extras["glass_dragon_status"] = "skipped_budget"
-        _emit(mrays, dict(extras))
+        _emit(mrays, device, dict(extras))
         return 0
     old2 = signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(max(1, int(remaining)))
     try:
         from halogen_tpu.scene import meshes
 
-        if args.quick or on_cpu:
+        if args.quick:
             gw, gspp, gb, gframes = 64, 2, 4, 1
         else:
             gw, gspp, gb, gframes = 512, 32, 12, 1
@@ -197,14 +202,14 @@ def main():
         g_mrays = gspp * gw * gw * gframes / (time.perf_counter() - t0) / 1e6
         signal.alarm(0)
         extras.update({
-            "glass_dragon_mrays": round(g_mrays, 3),
+            "glass_dragon_mrays": g_mrays,
             "glass_dragon_config": f"{gw}x{gw}, {gspp}spp, {gb} bounces",
             "glass_dragon_status": "ok",
         })
-        _emit(mrays, dict(extras))
+        _emit(mrays, device, dict(extras))
     except _BudgetExceeded:
         extras["glass_dragon_status"] = "timeout_budget"
-        _emit(mrays, dict(extras))
+        _emit(mrays, device, dict(extras))
     finally:
         signal.alarm(0)
         signal.signal(signal.SIGALRM, old2)

@@ -1,4 +1,4 @@
-"""Halogen-TPU: a TPU-native differentiable path tracer (JAX/XLA/Pallas).
+"""Halogen: a differentiable path tracer in JAX (XLA).
 
 Brand-new framework with the capabilities of the reference Unity/HLSL renderer
 Kabinet0/Halogen-Pathtracer (see SURVEY.md): BVH-accelerated triangle meshes and
@@ -12,7 +12,6 @@ multi-device sharding which the reference lacks.
 
 from halogen_tpu.config import (
     DebugMode,
-    Fused,
     Intersector,
     RenderSettings,
     SamplerKind,
@@ -29,7 +28,6 @@ __version__ = "0.1.0"
 __all__ = [
     "RenderSettings",
     "DebugMode",
-    "Fused",
     "Intersector",
     "SamplerKind",
     "Material",

@@ -1,13 +1,13 @@
 """Host-side (numpy) per-mesh BVH builder.
 
-TPU-native re-design of the reference's C# builder
+A re-design of the reference's C# builder
 (`Assets/Scripts/BVHGenerator.cs:13-134`): same algorithm family and node
 invariants — binary BVH, midpoint split on the longest AABB axis,
 breadth-first (non-recursive) construction, in-place partition of the
 triangle order, children stored contiguously (childB = childA + 1), node =
 (aabb_lo, aabb_hi, index_a, tri_count) with tri_count > 0 marking a leaf
-(`HalogenRenderPass.cs:68-76`) — but with two deliberate changes for the TPU
-traversal loops:
+(`HalogenRenderPass.cs:68-76`) — but with two deliberate changes for the
+lockstep traversal loops:
 
 1. **Bounded leaves.** Reference midpoint splits can fail (all centroids on
    one side), leaving arbitrarily large leaves (`BVHGenerator.cs:86-91`

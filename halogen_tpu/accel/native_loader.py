@@ -1,16 +1,20 @@
 """ctypes loader for the native (C++) acceleration-structure builder.
 
-The native tier of the host runtime: compiles `accel/native/bvh_builder.cpp`
-once (g++ -O3 -shared, cached next to the source) and exposes
+The native tier of the host runtime: on first use, compiles
+`accel/native/bvh_builder.cpp` from the checkout (g++ -O3 -shared) into
+`accel/native/_bvh_builder.so`, which git ignores, and exposes
 `build_bvh_sah`, a binned-SAH builder producing the same flat node layout
 as the Python builder (`accel/bvh.py`) — drop-in, higher quality (SAH was
 the reference's own TODO, `HalgoenCompute.compute:16`), and fast enough for
-dragon-class meshes. Falls back cleanly: callers check `available()`.
+dragon-class meshes. The library is rebuilt whenever it is older than the
+source. If the build fails, a warning is logged and callers fall back to
+the numpy builder (`available()` is False).
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import subprocess
 import threading
@@ -25,15 +29,28 @@ _load_failed = False
 
 
 def _compile() -> bool:
+    # Build under a per-process name and rename into place, so processes
+    # that import the package at once never load a half-written library.
+    # No -march=native: the checkout may be copied to another machine.
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-             "-o", _LIB, _SRC],
+            ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
             check=True, capture_output=True, timeout=120,
         )
+        os.replace(tmp, _LIB)
         return True
-    except (subprocess.SubprocessError, FileNotFoundError):
-        return False
+    except subprocess.CalledProcessError as e:
+        detail = e.stderr.decode(errors="replace").strip()
+    except (subprocess.SubprocessError, OSError) as e:
+        detail = str(e)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    logging.getLogger("halogen_tpu").warning(
+        "native BVH builder did not build (%s); using the numpy builder",
+        detail)
+    return False
 
 
 def _load():
@@ -62,7 +79,10 @@ def _load():
                 ctypes.POINTER(ctypes.c_int32),
             ]
             _lib = lib
-        except OSError:
+        except OSError as e:
+            logging.getLogger("halogen_tpu").warning(
+                "native BVH builder did not load (%s); using the numpy "
+                "builder", e)
             _load_failed = True
     return _lib
 

@@ -1,6 +1,6 @@
 """Command-line renderer: the headless equivalent of the reference's Unity
 editor loop (scene + settings -> progressive render -> image on disk), plus
-the BASELINE.json benchmark-ladder configs as named presets.
+the benchmark-ladder configs (BASELINE.md) as named presets.
 
 Usage:
     python -m halogen_tpu.cli render --preset cornell_256 --out out.png
@@ -19,7 +19,7 @@ import time
 
 
 # ---------------------------------------------------------------------------
-# BASELINE.json ladder presets (SURVEY.md §6)
+# Ladder presets (BASELINE.md)
 # ---------------------------------------------------------------------------
 
 PRESETS = {
@@ -98,16 +98,25 @@ def _settings(args):
 
 
 def _save_png(img, path: str, gamma: float = 2.2, flip: bool = True):
+    """Write a PNG through PIL, the CLI's only use of it. Without PIL the
+    linear float image goes to `<path>.npy` instead, and a warning says
+    so: rendering itself never needs PIL."""
     import numpy as np
+    from halogen_tpu.utils.metrics import get_logger
+
     img = np.asarray(img)
     im8 = (np.clip(img, 0.0, 1.0) ** (1.0 / gamma) * 255).astype(np.uint8)
     if flip:
         im8 = im8[::-1]  # row 0 is the bottom of the frame
     try:
         from PIL import Image
-        Image.fromarray(im8).save(path)
     except ImportError:
         np.save(path + ".npy", img)
+        get_logger().warning(
+            "PIL is not installed, so no PNG was written: saved the linear "
+            "image to %s.npy instead", path)
+        return
+    Image.fromarray(im8).save(path)
 
 
 def _add_render_args(p: argparse.ArgumentParser):
@@ -204,6 +213,7 @@ def cmd_render(args) -> int:
 def cmd_bench(args) -> int:
     import jax.numpy as jnp
     from halogen_tpu.integrator.trace import render_frame
+    from halogen_tpu.utils.device import device_info
 
     args = _apply_preset(args)
     scene = _build_scene(args.scene, args.envmap)
@@ -218,9 +228,9 @@ def cmd_bench(args) -> int:
     rays = st.samples_per_pixel * st.num_pixels * max(args.frames, 1)
     print(json.dumps({
         "metric": f"fwd_throughput_{args.preset or args.scene}",
-        "value": round(rays / dt / 1e6, 3),
+        "value": rays / dt / 1e6,
         "unit": "Mrays/s/chip",
-        "vs_baseline": round(rays / dt / 1e6 / 100.0, 4),
+        "device": device_info(),
     }))
     return 0
 

@@ -1,6 +1,6 @@
 """Render configuration.
 
-TPU-native equivalent of the reference's two config tiers (SURVEY.md §5.6):
+The JAX equivalent of the reference's two config tiers (SURVEY.md §5.6):
 the `HalogenSettings` runtime config (reference
 `Render Features/HalogenRenderFeature.cs:24-67`) and the compile-time flag
 header (`Halogen Shaders/HalogenDefines.hlsl:4-10`). Everything here is a
@@ -34,45 +34,19 @@ class SamplerKind(enum.IntEnum):
     PRNG = 1
 
 
-class Fused(enum.IntEnum):
-    """Fused-bounce megakernel dispatch (`kernels/megakernel.py`).
-
-    AUTO routes eligible scenes (see `megakernel.fused_supported`) through
-    the single-`pallas_call` path loop on TPU — the TPU answer to the
-    reference's whole-path-per-dispatch megakernel
-    (`HalgoenCompute.compute:876-1063`). OFF always uses the lockstep /
-    wavefront schedulers. FORCE takes the fused path even off-TPU
-    (Pallas interpret mode — slow; for parity tests).
-    """
-
-    AUTO = 0
-    OFF = 1
-    FORCE = 2
-
-
 class Intersector(enum.IntEnum):
     """Scene-intersection backend.
 
-    AUTO selects BRUTE for small scenes (regular, gather-free — maps
-    perfectly onto the TPU VPU) and, above the triangle threshold, the
-    TREELET skip-link kernel on TPU (the fastest standalone traversal
-    in the recorded A/B: treelet 0.44 vs raylet/flatlet 0.33 Mrays/s
-    on glass_dragon; the raylet design instead ships as the fused
-    megakernel's in-kernel traversal tier), falling back to the
-    shared-stack PALLAS kernel beyond the treelet VMEM cap, or the
-    lockstep JAX traversal elsewhere (BVH). AUTO choices cite on-chip
-    A/B measurements in perf/tpu_evidence.jsonl. The reference has
-    only a per-mesh BVH megakernel path
+    AUTO selects BRUTE (a regular rays x triangle-tiles scan with no
+    per-ray control flow) up to `RenderSettings.brute_force_max_tris`
+    triangles and the lockstep BVH traversal above it, on every backend.
+    The reference has only a per-mesh BVH path
     (`HalgoenCompute.compute:378-472`).
     """
 
     AUTO = 0
     BRUTE = 1
     BVH = 2
-    PALLAS = 3  # shared-stack block traversal (coherent rays, any size)
-    TREELET = 4  # per-ray skip-link treelet traversal (monotone schedule)
-    FLATLET = 5  # dense flat-treelet worklist kernel (kernels/flatlet.py)
-    RAYLET = 6  # per-ray worklist + one-hot MXU gather (kernels/raylet.py)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,18 +107,15 @@ class RenderSettings:
     triangle_debug_display_range: int = 64
     box_debug_display_range: int = 64
 
-    # TPU execution knobs (no reference counterpart)
+    # Execution knobs (no reference counterpart)
     intersector: Intersector = Intersector.AUTO
-    # Fused-bounce Pallas megakernel: whole path loop in one kernel for
-    # eligible scenes (the single-chip speed path).
-    fused: Fused = Fused.AUTO
     # Wavefront scheduler (SURVEY.md §2 #14): compact active rays per
     # bounce and run only live blocks. Forward-only (no grad); best for
     # deep-bounce scenes with Russian roulette. Off = lockstep masking.
     wavefront: bool = False
     wavefront_block: int = 8192  # rays per wavefront dispatch block
     ray_chunk_size: int = 65536  # rays traced per inner step (memory bound)
-    triangle_block: int = 128  # brute-force triangle tile (lane-aligned)
+    triangle_block: int = 128  # brute-force triangle tile
     brute_force_max_tris: int = 4096  # AUTO picks BVH above this
 
     def __post_init__(self):

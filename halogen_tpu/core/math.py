@@ -1,9 +1,15 @@
 """Vectorized geometry math for the path tracer.
 
 Every function here is shape-polymorphic over a leading batch of rays and is
-pure VPU work under jit (no gathers, no data-dependent control flow). These
-are the TPU counterparts of the reference's HLSL intersection/shading helpers
-in `Halogen Shaders/HalgoenCompute.compute` (cited per function).
+elementwise work under jit (no data-dependent control flow). These are the
+JAX counterparts of the reference's HLSL intersection/shading helpers in
+`Halogen Shaders/HalgoenCompute.compute` (cited per function).
+
+A float32 `einsum`/`matmul` at default precision may run in TF32 on a GPU
+(10 mantissa bits), which would put camera rays and the world-to-local
+rays of the BVH walk ~1e-3 off, relative to scene scale. The 3x3
+transforms below are therefore written as explicit multiply-adds; the one
+matmul here (the transpose of `gather_rows`) asks for HIGHEST precision.
 
 Convention: 3-vectors are stored in the trailing axis ([..., 3]); batched
 broadcasting follows numpy rules.
@@ -12,6 +18,7 @@ broadcasting follows numpy rules.
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 INF = np.float32(np.inf)
@@ -33,22 +40,24 @@ def normalize(v: jnp.ndarray, eps: float = 0.0) -> jnp.ndarray:
     return v / jnp.maximum(n, eps) if eps else v / n
 
 
+def transform_dir(mat: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
+    """Apply a [..., 4, 4] matrix to [..., 3] directions (w = 0):
+    sum_j M[i, j] d[j], in full float32."""
+    return (mat[..., :3, 0] * d[..., 0:1] + mat[..., :3, 1] * d[..., 1:2]
+            + mat[..., :3, 2] * d[..., 2:3])
+
+
 def transform_point(mat: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """Apply a [..., 4, 4] affine matrix to [..., 3] points (w = 1)."""
-    return (
-        jnp.einsum("...ij,...j->...i", mat[..., :3, :3], p) + mat[..., :3, 3]
-    )
-
-
-def transform_dir(mat: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
-    """Apply a [..., 4, 4] matrix to [..., 3] directions (w = 0)."""
-    return jnp.einsum("...ij,...j->...i", mat[..., :3, :3], d)
+    return transform_dir(mat, p) + mat[..., :3, 3]
 
 
 def transform_normal(world_to_local: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
     """Transform a normal by the inverse-transpose of local->world, i.e.
-    n' = (W2L)^T n (HalgoenCompute.compute:467)."""
-    return jnp.einsum("...ji,...j->...i", world_to_local[..., :3, :3], n)
+    n' = (W2L)^T n (HalgoenCompute.compute:467), in full float32."""
+    m = world_to_local
+    return (m[..., 0, :3] * n[..., 0:1] + m[..., 1, :3] * n[..., 1:2]
+            + m[..., 2, :3] * n[..., 2:3])
 
 
 def ray_aabb(
@@ -134,13 +143,11 @@ def triangle_intersect(
 # ---------------------------------------------------------------------------
 # SoA (component-wise) variants of the hot intersection primitives.
 #
-# TPU rationale: the [..., 3] vector convention above puts a size-3 axis in
-# the minor (lane) dimension, so the VPU pads 3 -> 128 lanes and wastes ~97%
-# of its width on every elementwise op. The hot intersection loops instead
-# operate on per-component arrays whose trailing axis is a batch dimension
-# (rays or primitives), which keeps all 128 lanes busy — measured ~6x on
-# Möller-Trumbore over a 128-triangle tile on v5e. Each function mirrors its
-# AoS twin op-for-op (same association order) so results match bit-for-bit.
+# The hot intersection loops operate on per-component arrays whose trailing
+# axis is a batch dimension (rays or primitives) instead of a size-3 vector
+# axis, so every op runs over contiguous batch-length arrays. Each function
+# mirrors its AoS twin op-for-op (same association order) so results match
+# bit-for-bit.
 # ---------------------------------------------------------------------------
 
 def unstack3(v: jnp.ndarray):
@@ -149,22 +156,9 @@ def unstack3(v: jnp.ndarray):
 
 
 def stack3(x: jnp.ndarray, y: jnp.ndarray, z: jnp.ndarray) -> jnp.ndarray:
-    """(x, y, z) -> [..., 3], with an optimization barrier before the stack.
-
-    TPU rationale: XLA sinks the producers of `stack` operands into the
-    concatenate's [N, 1] slices, which get the degenerate T(1,128) layout
-    (1/8 sublane utilization) — profiled at ~35% of a Cornell frame for
-    chains as deep as the whole Sobol sampler. The barrier forces the
-    component math to evaluate at the native [N] layout; only the cheap
-    relayout copy remains inside the stack. Differentiable (barrier is
-    identity with identity transpose).
-    """
-    import jax
-
-    x, y, z = jax.lax.optimization_barrier(
-        (jnp.asarray(x), jnp.asarray(y), jnp.asarray(z))
-    )
-    return jnp.stack([x, y, z], axis=-1)
+    """(x, y, z) -> [..., 3]."""
+    return jnp.stack([jnp.asarray(x), jnp.asarray(y), jnp.asarray(z)],
+                     axis=-1)
 
 
 def dot_soa(a, b):
@@ -247,35 +241,52 @@ def sphere_intersect_soa(o, d, c, radius):
     return t, orientation
 
 
-def gather_rows(table: jnp.ndarray, idx: jnp.ndarray,
-                max_onehot: int = 128) -> jnp.ndarray:
-    """`table[idx]` for a [K, ...] table, lowered to a one-hot MXU matmul
-    when K is small.
+# Tables of at most this many rows get the dense transpose in gather_rows.
+ONEHOT_TRANSPOSE_MAX_ROWS = 128
 
-    TPU rationale: per-ray dynamic gathers run on the scalar/sparsecore
-    path at ~10 ns/element (profiled: 8 material-field gathers were ~70%
-    of a Cornell frame), while the equivalent one-hot matmul rides the MXU
-    at effectively zero cost for small K. Precision HIGHEST makes the
-    matmul bit-exact for f32 payloads (each row of the one-hot operand has
-    exactly one 1.0). Integer tables round-trip through f32 exactly for
-    |v| < 2^24. Negative indices produce all-zero rows (NOT python-style
-    wrap-around) — callers must pass valid ids.
+
+@jax.custom_vjp
+def gather_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    """`table[idx]` for a [K, ...] table; a negative id gives a zero row
+    (NOT python-style wrap-around), as does an id >= K.
+
+    The forward is a plain gather. Its transpose (the gradient w.r.t. the
+    table) is a scatter-add; the tables differentiated through here are
+    material and emission tables of a few rows, each hit by millions of
+    rays, and a scatter-add into so few rows serialises on atomic adds.
+    For tables of at most ONEHOT_TRANSPOSE_MAX_ROWS rows the transpose is
+    therefore a dense one-hot matmul, at HIGHEST precision so it stays
+    float32. Measured on the H100 against a one-hot matmul forward and
+    against plain autodiff of the gather (PERF.md, PR 1).
     """
     k = table.shape[0]
-    if k > max_onehot:
-        return table[idx]
-    import jax
+    return jnp.take(table, jnp.where(idx < 0, k, idx), axis=0,
+                    mode="fill", fill_value=0)
 
-    oh = (idx[..., None] == jnp.arange(k, dtype=jnp.int32)).astype(jnp.float32)
-    flat = table.reshape(k, -1)
-    out_dtype = table.dtype
-    if jnp.issubdtype(out_dtype, jnp.integer):
-        flat = flat.astype(jnp.float32)
-    out = jnp.matmul(oh, flat, precision=jax.lax.Precision.HIGHEST)
-    out = out.reshape(idx.shape + table.shape[1:])
-    if jnp.issubdtype(out_dtype, jnp.integer):
-        out = jnp.round(out).astype(out_dtype)
-    return out
+
+def _gather_rows_fwd(table, idx):
+    return gather_rows(table, idx), (table, idx)
+
+
+def _gather_rows_bwd(res, ct):
+    table, idx = res
+    k = table.shape[0]
+    d_idx = np.zeros(idx.shape, jax.dtypes.float0)
+    if not jnp.issubdtype(table.dtype, jnp.inexact):
+        return np.zeros(table.shape, jax.dtypes.float0), d_idx
+    if k <= ONEHOT_TRANSPOSE_MAX_ROWS:
+        onehot = (idx[..., None] == jnp.arange(k, dtype=idx.dtype)).astype(
+            ct.dtype)
+        axes = list(range(idx.ndim))
+        d_table = jnp.tensordot(onehot, ct, axes=(axes, axes),
+                                precision=jax.lax.Precision.HIGHEST)
+    else:
+        d_table = jnp.zeros(table.shape, ct.dtype).at[
+            jnp.where(idx < 0, k, idx)].add(ct, mode="drop")
+    return d_table.astype(table.dtype), d_idx
+
+
+gather_rows.defvjp(_gather_rows_fwd, _gather_rows_bwd)
 
 
 def reflect(incident: jnp.ndarray, normal: jnp.ndarray) -> jnp.ndarray:

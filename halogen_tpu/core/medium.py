@@ -1,9 +1,9 @@
 """Nested-dielectric interface tracking as a data-parallel sorted stack.
 
-TPU redesign of the reference's per-thread `participatingMediumStack`
+A data-parallel redesign of the reference's per-thread `participatingMediumStack`
 (`HalgoenCompute.compute:188-189,582-665`): each ray carries a fixed-depth
 stack stored as SoA arrays; push/pop are branch-free vectorized shifts with
-per-ray masks, so a whole wavefront updates in lockstep on the VPU.
+per-ray masks, so a whole wavefront updates in lockstep.
 
 Semantics preserved exactly (priority rule and ordering):
 - Lower priority value = higher precedence; the stack is kept sorted in

@@ -1,10 +1,10 @@
 """Device-side scene pytrees (SoA, flat buffers).
 
-The TPU analog of the reference's packed GPU structs and flat ComputeBuffers
+The JAX analog of the reference's packed GPU structs and flat ComputeBuffers
 (`Render Features/HalogenRenderPass.cs:10-76,448-509`): triangles, BVH nodes,
 meshes, spheres, and materials concatenated into structure-of-array jnp
 buffers with per-mesh offsets. SoA layout shards/replicates cleanly across a
-device mesh and vectorizes on the VPU.
+device mesh and vectorizes as whole-array ops.
 """
 
 from __future__ import annotations
@@ -112,30 +112,6 @@ class SceneData:
     lights: object = None
     tri_light_pdf_area: jnp.ndarray = None
     sphere_light_sel: jnp.ndarray = None  # [S] selection prob, 0 non-emissive
-
-    # Global world-space BVH packed for the Pallas traversal kernel
-    # (kernels/bvh_pallas.WorldBVH NamedTuple), or None. Unlike the
-    # reference's per-mesh BVHs this is one tree over all pre-transformed
-    # triangles (its TLAS TODO solved the TPU way).
-    wbvh: object = None
-
-    # Skip-link treelet BVH for the per-ray Pallas traversal kernel
-    # (kernels/treelet_bvh.TreeletBVH), or None — the incoherent-ray
-    # workhorse, built for scenes within its VMEM-resident cap.
-    tbvh: object = None
-
-    # Flat-treelet tables for the dense worklist kernel
-    # (kernels/flatlet.FlatletBVH), or None. The big-scene workhorse:
-    # dense ray x flatlet-AABB culling + per-union dense triangle
-    # tiles, no per-lane gathers (see kernels/flatlet.py).
-    fbvh: object = None
-
-    # Raylet tables (kernels/raylet.RayletBVH), or None: per-ray
-    # nearest-first worklists over the flatlet cut, triangle tiles
-    # fetched by one-hot MXU matmuls. The incoherent-bounce-ray
-    # workhorse — cost scales with per-ray candidate counts, not with
-    # block unions (see kernels/raylet.py).
-    rbvh: object = None
 
     # Static (jit-specializing) scene facts, computed at build time.
     # `any_transmissive`: does any material have transmission alpha < 1?

@@ -1,6 +1,6 @@
 """Thin-lens camera ray generation with Blackman-Harris pixel filtering.
 
-TPU re-implementation of the reference's `get_ray` / `get_ray_jitter`
+A vectorized re-implementation of the reference's `get_ray` / `get_ray_jitter`
 (`HalgoenCompute.compute:984-1013`): pinhole frustum defined by
 half-width/half-height at the near plane (ViewParameters,
 `HalogenRenderPass.cs:359-368`), thin-lens aperture sampling on a focal

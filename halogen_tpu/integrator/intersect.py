@@ -1,22 +1,22 @@
 """Scene intersection backends.
 
-Two TPU-native formulations of the reference's intersection layer
+Two whole-array JAX formulations of the reference's intersection layer
 (`HalgoenCompute.compute:244-485`):
 
 - **Brute-force** (`intersect_brute`): rays x triangle-blocks on
   world-space pre-transformed triangles. Completely regular — no gathers,
-  no divergence; a `lax.scan` over lane-aligned triangle tiles with a
-  running min. For Cornell-class scenes this maps at speed-of-light onto
-  the VPU and beats any divergent traversal. Spheres are tested in one
-  vectorized pass (the reference also linear-scans spheres,
+  no per-ray control flow; a `lax.scan` over triangle tiles with a
+  running min. Used for small (Cornell-class) scenes. Spheres are tested
+  in one vectorized pass (the reference also linear-scans spheres,
   compute:357-376).
 
 - **BVH traversal** (`intersect_bvh`): the semantics oracle of the
   reference's per-mesh stack traversal (compute:378-472) — local-space
   unnormalized rays (world-t preservation trick, compute:390-392),
   fixed-depth stacks, nearest-child-first descent, leaf triangle tests —
-  vectorized over all rays in lockstep with per-ray masks. Gather-bound on
-  TPU; used for triangle counts beyond the brute-force threshold.
+  vectorized over all rays in lockstep with per-ray masks, in a
+  `lax.while_loop` that runs until the last ray's stack is empty. Used
+  for triangle counts beyond the brute-force threshold.
 
 Both return an identical `HitRecord` plus (triangle_tests, box_tests)
 counters for the debug heatmaps (compute:192-193).
@@ -54,21 +54,6 @@ def _safe_inv(d: jnp.ndarray) -> jnp.ndarray:
     return 1.0 / jnp.where(jnp.abs(d) < tiny, tiny, d)
 
 
-def _onehot_min(t: jnp.ndarray, values: tuple[jnp.ndarray, ...]):
-    """Per-row min over the last axis of t [N, B]; returns (min_t, picked
-    values) selecting each `values[k]` [N, B] at the argmin — implemented
-    with a one-hot reduction (no gathers, VPU-friendly)."""
-    best = jnp.min(t, axis=1)
-    arg = jnp.argmin(t, axis=1)
-    onehot = (
-        jax.lax.broadcasted_iota(jnp.int32, t.shape, 1) == arg[:, None]
-    )
-    picked = tuple(
-        jnp.sum(jnp.where(onehot, v, jnp.zeros_like(v)), axis=1) for v in values
-    )
-    return best, arg, picked
-
-
 # ---------------------------------------------------------------------------
 # Brute force
 # ---------------------------------------------------------------------------
@@ -90,10 +75,9 @@ def intersect_tris_brute(
         z = jnp.zeros((n,), jnp.float32)
         return jnp.full((n,), INF), jnp.zeros((n,), jnp.int32), z, z, z
 
-    # Triangle tiles oriented [B, N]: rays ride the 128-wide lane axis
-    # (always full) and triangles the 8-deep sublane axis — a scene with
-    # T < 128 triangles then pads T only up to the next multiple of 8
-    # instead of to 128 lanes (8x less VPU work on a 12-tri Cornell box).
+    # Triangle tiles are oriented [B, N] (triangles x rays), and a scene
+    # with T < block triangles pads T only up to the next multiple of 8,
+    # not to a whole block: a 12-triangle Cornell box tests 16, not 128.
     sub = 8
     blk = max(sub, min(block, -(-t_count // sub) * sub))
     pad = (-t_count) % blk
@@ -161,8 +145,8 @@ def _intersect_spheres(scene: SceneData, origin, direction, far):
     if s == 0:
         return (jnp.full((n,), INF), jnp.zeros((n,), jnp.int32),
                 jnp.ones((n,), jnp.float32))
-    # SoA components oriented [S, N]: rays in lanes (always 128-full),
-    # spheres in sublanes (pad to 8, not 128 — see intersect_tris_brute).
+    # SoA components oriented [S, N] (spheres x rays), as the triangle
+    # tiles of intersect_tris_brute.
     o = tuple(origin[None, :, k] for k in range(3))
     d = tuple(direction[None, :, k] for k in range(3))
     inv_dv = _safe_inv(direction)
@@ -432,169 +416,20 @@ def intersect_bvh(
     return hit, tri_tests, box_tests
 
 
-# ---------------------------------------------------------------------------
-# Pallas shared-stack traversal (kernels/bvh_pallas.py)
-# ---------------------------------------------------------------------------
-
-def _ray_sort_keys(scene: SceneData, origin, direction) -> jnp.ndarray:
-    """Coherence key for block-synchronous traversal: direction octant in
-    the high bits, 7-bit-per-axis Morton code of the origin (within the
-    world-BVH root bounds) below. Sorting bounce rays by this key groups
-    rays that will traverse similar subtrees into the same 1024-ray block,
-    which is what the shared-stack kernel's speculation model wants."""
-    root = scene.wbvh.root  # [8] row: lo.xyz | hi.xyz (both packings)
-    lo = root[0:3]
-    inv_ext = 1.0 / jnp.maximum(root[3:6] - lo, 1e-6)
-    q = jnp.clip(((origin - lo) * inv_ext * 127.0).astype(jnp.int32), 0, 127)
-
-    def spread3(x):  # interleave 7 bits -> 21
-        x = (x | (x << 14)) & 0x1F0000FF
-        x = (x | (x << 6)) & 0x10C30C3F
-        x = (x | (x << 2)) & 0x49249249 & ((1 << 21) - 1)
-        return x
-
-    morton = (spread3(q[:, 0]) | (spread3(q[:, 1]) << 1)
-              | (spread3(q[:, 2]) << 2))
-    octant = ((direction[:, 0] > 0).astype(jnp.int32)
-              | ((direction[:, 1] > 0).astype(jnp.int32) << 1)
-              | ((direction[:, 2] > 0).astype(jnp.int32) << 2))
-    return (octant << 21) | morton
-
-
-def _sort_keys_with_dead_last(scene, origin, direction, far):
-    """Coherence key, with dead lanes (far <= 0, see trace._pool_bounce)
-    sorted past every live ray: live rays then compact into coherent
-    blocks and dead blocks fail the root test immediately instead of
-    diluting live blocks with stale-ray node unions."""
-    key = _ray_sort_keys(scene, origin, direction)
-    return jnp.where(far > 0.0, key, jnp.int32(0x7FFFFFFF))
-
-
-def intersect_pallas(
-    scene: SceneData, origin: jnp.ndarray, direction: jnp.ndarray,
-    far: jnp.ndarray, sort_rays: bool = True, use_treelet: bool = False,
-    use_flatlet: bool = False, use_raylet: bool = False,
-):
-    """Closest hit via the Pallas block-synchronous world-BVH kernel.
-
-    Same contract as intersect_bvh; intersection-work counters are
-    block-aggregate (every ray in a 1024-ray block is charged for the
-    block's shared traversal — the honest cost model for this kernel).
-    Falls back to interpret mode off-TPU (slow; tests only).
-
-    Scenes beyond the VMEM-resident triangle cap arrive as a
-    ChunkedWorldBVH (see kernels/bvh_pallas.py) and run the kernel once
-    per spatial chunk with the best-t carried forward.
-
-    sort_rays: permute rays by an octant+Morton coherence key before the
-    kernel and unpermute the results — cheap XLA sort/gathers vs. the
-    traversal, and it restores block coherence for bounce rays. The image
-    is bit-identical either way (results return to their original lanes).
-    """
-    from halogen_tpu.kernels.bvh_pallas import traverse_world_bvh_any
-    from halogen_tpu.kernels.flatlet import traverse_flatlets
-    from halogen_tpu.kernels.raylet import traverse_raylets
-    from halogen_tpu.kernels.treelet_bvh import traverse_treelets
-
-    n = origin.shape[0]
-    sp_t, sp_i, sp_orient = _intersect_spheres(scene, origin, direction, far)
-    if scene.num_triangles == 0 or scene.wbvh is None:
-        hit = _sphere_only_hit(scene, origin, direction, sp_t, sp_i, sp_orient)
-        zeros = jnp.zeros((n,), jnp.int32)
-        return hit, zeros, zeros
-
-    # Seed best-t with the sphere distance minus the hit epsilon: a
-    # triangle must beat the sphere hit by HIT_EPS (compute:452) and lie
-    # inside the far plane.
-    seed = jnp.minimum(far, jnp.where(sp_t < INF, sp_t - HIT_EPS, INF))
-    interpret = jax.default_backend() != "tpu"
-
-    if use_raylet and scene.rbvh is not None:
-        trav = lambda o, d, s: traverse_raylets(
-            scene.rbvh, o, d, s, interpret=interpret)
-    elif use_flatlet and scene.fbvh is not None:
-        trav = lambda o, d, s: traverse_flatlets(
-            scene.fbvh, o, d, s, interpret=interpret)
-    elif use_treelet and scene.tbvh is not None:
-        trav = lambda o, d, s: traverse_treelets(
-            scene.tbvh, o, d, s, interpret=interpret)
-    else:
-        trav = lambda o, d, s: traverse_world_bvh_any(
-            scene.wbvh, o, d, s, interpret=interpret)
-
-    if sort_rays:
-        order = jnp.argsort(
-            _sort_keys_with_dead_last(scene, origin, direction, far))
-        inv = jnp.argsort(order)
-        t, tri, u, v, s, tt, bt = trav(
-            origin[order], direction[order], seed[order])
-        t, tri, u, v, s, tt, bt = (
-            x[inv] for x in (t, tri, u, v, s, tt, bt)
-        )
-    else:
-        t, tri, u, v, s, tt, bt = trav(origin, direction, seed)
-    t, u, v, s = (jax.lax.stop_gradient(x) for x in (t, u, v, s))
-    mesh_wins = t < seed  # kernel already enforced t < seed
-
-    t_final = jnp.where(mesh_wins, t, sp_t)
-    pos = _hit_pos(origin, direction, t_final)
-
-    tri_n = scene.tri_normals_world[tri]
-    n0, n1, n2 = tri_n[:, 0], tri_n[:, 1], tri_n[:, 2]
-    tri_normal = n0 + (n1 - n0) * u[:, None] + (n2 - n0) * v[:, None]
-    tri_normal = normalize(tri_normal * s[:, None], eps=1e-20)
-
-    sph_normal, sph_material = _sphere_normal_material(scene, pos, sp_i,
-                                                       sp_orient)
-    normal = jnp.where(mesh_wins[:, None], tri_normal, sph_normal)
-    orientation = jnp.where(mesh_wins, s, sp_orient)
-    material = jnp.where(mesh_wins, scene.tri_material[tri], sph_material)
-    hit = HitRecord(t=t_final, pos=pos, normal=normal,
-                    orientation=orientation, material=material,
-                    tri=jnp.where(mesh_wins, tri, -1),
-                    sphere=jnp.where((~mesh_wins) & (sp_t < INF), sp_i, -1))
-    return hit, tt, bt
-
-
 def intersect_scene(
     scene: SceneData, origin: jnp.ndarray, direction: jnp.ndarray,
     far: jnp.ndarray, settings: RenderSettings,
 ):
-    """Backend dispatch (static): AUTO uses brute force below the triangle
-    threshold and the Pallas kernel (TPU) / lockstep JAX traversal (CPU)
-    above it (get_ray_intersection, compute:474-485)."""
+    """Backend dispatch (static): AUTO uses brute force up to
+    `brute_force_max_tris` triangles and the lockstep BVH traversal above
+    it (get_ray_intersection, compute:474-485). The choice depends on the
+    scene alone, never on the platform."""
     kind = settings.intersector
-    on_tpu = jax.default_backend() == "tpu"
     if kind == Intersector.AUTO:
-        if scene.num_triangles <= settings.brute_force_max_tris:
-            kind = Intersector.BRUTE
-        elif on_tpu and scene.tbvh is not None:
-            # On-chip A/B (perf/tpu_evidence.jsonl, glass_dragon 8.7k
-            # tris): treelet 0.44 > flatlet 0.33 = shared-stack 0.33
-            # Mrays/s — AUTO follows the recorded measurements.
-            kind = Intersector.TREELET
-        elif on_tpu and scene.wbvh is not None:
-            kind = Intersector.PALLAS
-        else:
-            kind = Intersector.BVH
-    if kind == Intersector.RAYLET and scene.rbvh is None:
-        kind = Intersector.PALLAS  # beyond the raylet VMEM cap
-    if kind == Intersector.FLATLET and scene.fbvh is None:
-        kind = Intersector.PALLAS  # beyond the flatlet VMEM cap
-    if kind == Intersector.TREELET and scene.tbvh is None:
-        kind = Intersector.PALLAS  # beyond the treelet VMEM cap
+        kind = (Intersector.BRUTE
+                if scene.num_triangles <= settings.brute_force_max_tris
+                else Intersector.BVH)
     if kind == Intersector.BRUTE:
         return intersect_brute(scene, origin, direction, far,
                                settings.triangle_block)
-    if kind == Intersector.RAYLET:
-        return intersect_pallas(scene, origin, direction, far,
-                                use_raylet=True)
-    if kind == Intersector.FLATLET:
-        return intersect_pallas(scene, origin, direction, far,
-                                use_flatlet=True)
-    if kind == Intersector.TREELET:
-        return intersect_pallas(scene, origin, direction, far,
-                                use_treelet=True)
-    if kind == Intersector.PALLAS:
-        return intersect_pallas(scene, origin, direction, far)
     return intersect_bvh(scene, origin, direction, far)

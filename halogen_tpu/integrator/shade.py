@@ -8,8 +8,8 @@ mirrors the interface-tracking wrapper (priority-based true-hit decision,
 medium stack push/pop sequencing incl. the reflected-ray "bandaid" pop at
 compute:799-802, Beer-Lambert absorption at compute:810-813).
 
-All branches are computed for every ray and combined with masks — the TPU
-equivalent of the reference's SIMT divergence.
+All branches are computed for every ray and combined with masks — the
+whole-array equivalent of the reference's SIMT divergence.
 
 Bounce type encoding (compute:882-887): 0 diffuse, 1 specular/glossy,
 2 transmissive.
@@ -67,10 +67,10 @@ def gather_materials(materials: MaterialTable, idx: jnp.ndarray) -> MaterialSamp
     """Fetch per-ray material parameters.
 
     All float fields are concatenated into one [K, 18] matrix and fetched
-    with a single one-hot MXU matmul (`gather_rows`) — per-field dynamic
-    gathers were ~70% of a profiled Cornell frame on v5e. The matmul's
-    vjp also turns the parameter gradient into a dense [K, 18] reduction
-    (no scatter), which is exactly what the inverse-rendering path wants.
+    with a single row gather (`gather_rows`): one contiguous 72-byte row
+    per ray instead of eight scattered loads. `gather_rows` transposes
+    into a dense [K, 18] reduction (no scatter), which is what the
+    inverse-rendering gradient wants.
     """
     k = materials.count
     table = jnp.concatenate(

@@ -1,10 +1,11 @@
 """The path-tracing integrator: bounce loop, sky shading, Russian roulette,
 debug views, and the per-frame renderer.
 
-TPU re-implementation of the reference megakernel
+A JAX re-implementation of the reference megakernel
 (`HalgoenCompute.compute:876-1063`): instead of one GPU thread per pixel
 with divergent control flow, rays live in flat SoA arrays and the bounce
-loop advances all rays in lockstep on the VPU with per-ray active masks.
+loop advances all rays in lockstep, as whole-array XLA ops with per-ray
+active masks.
 Two schedulers share one bounce implementation (`_pool_bounce`):
 
 - **lockstep** (`trace_rays`, default): `lax.scan` over bounces on the full
@@ -43,7 +44,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from halogen_tpu.config import DebugMode, Fused, RenderSettings, SamplerKind
+from halogen_tpu.config import DebugMode, RenderSettings, SamplerKind
 from halogen_tpu.core.math import (
     gather_rows,
     procedural_glossy_pdf,
@@ -180,11 +181,10 @@ def _pool_bounce(
     )
     active = carry.active & (~over)
 
-    # Dead lanes get far = 0: they fail every AABB/leaf test, so they
-    # stop inflating the traversal kernel's block node-unions (measured
-    # on glass_dragon: the pool is ~95% dead from bounce 3 on under RR,
-    # yet stale dead rays kept traversing). Correctness is unaffected —
-    # every consumer of this bounce's hit is masked by `active`.
+    # Dead lanes get far = 0: they fail every AABB/leaf test, so the BVH
+    # walk stops carrying them (under Russian roulette most of the pool
+    # is dead after a few bounces). Correctness is unaffected — every
+    # consumer of this bounce's hit is masked by `active`.
     far_eff = jnp.where(active, far, 0.0)
     hit, tt, bt = intersect_scene(
         scene, carry.origin, carry.direction, far_eff, settings
@@ -740,26 +740,11 @@ def render_pixels(
     seed = sob.pixel_seed(pix.astype(jnp.uint32))
     tracer = trace_rays_wavefront_diff if settings.wavefront else trace_rays
 
-    # Fused-bounce megakernel dispatch (static): eligible scenes run the
-    # whole path loop inside one pallas_call (kernels/megakernel.py) —
-    # the reference's megakernel design (HalgoenCompute.compute:876-1063)
-    # mapped to TPU. AUTO takes it only on real TPU hardware (interpret
-    # mode would be slower than the lockstep XLA program).
-    from halogen_tpu.kernels import megakernel as mk
-
-    use_fused = (
-        settings.fused != Fused.OFF
-        and mk.fused_supported(scene, settings)
-        and (settings.fused == Fused.FORCE
-             or jax.default_backend() == "tpu")
-    )
-
-    # Fold spp lanes into the ray axis: each device dispatch then carries
-    # up to ray_chunk_size rays instead of one [n] batch per spp lane.
-    # TPU rationale: a Cornell frame at n=65536 is launch-overhead-bound
-    # (~12k tiny kernels); widening the batch amortizes per-op overhead
-    # linearly. Results are identical — the sampler indexes by
-    # (frame, spp lane), so lanes are independent (SURVEY.md §3.4).
+    # Fold spp lanes into the ray axis: each bounce step then carries up
+    # to ray_chunk_size rays instead of one [n] batch per spp lane, so the
+    # fixed cost of each op is paid over more rays. Results are identical
+    # — the sampler indexes by (frame, spp lane), so lanes are independent
+    # (SURVEY.md §3.4).
     max_block = max(1, settings.ray_chunk_size // max(n, 1))
     spp_block = 1
     for cand in range(min(spp, max_block), 0, -1):
@@ -768,11 +753,9 @@ def render_pixels(
             break
     groups = spp // spp_block
     nb = n * spp_block
-    # PIXEL-major fold (all spp lanes of a pixel adjacent): same-pixel
-    # rays see near-identical geometry, so the worklist kernels' row
-    # granules stay balanced and deep-bounce survivors cluster into few
-    # live rows instead of spreading one per row. Per-ray results are
-    # unchanged (the sampler keys on (frame, lane), not slot).
+    # PIXEL-major fold: all spp lanes of a pixel sit next to each other,
+    # so neighbouring rays see near-identical geometry. Per-ray results
+    # are unchanged (the sampler keys on (frame, lane), not slot).
     pxb = jnp.repeat(px, spp_block)
     pyb = jnp.repeat(py, spp_block)
     seedb = jnp.repeat(seed, spp_block)
@@ -786,17 +769,11 @@ def render_pixels(
             camera, pxb, pyb, w, h, settings.filter_radius,
             sidx, seedb, _sampler_2d(settings),
         )
-        if use_fused:
-            # fused_supported guarantees debug_mode == NONE, so color is
-            # the only output the kernel needs to produce.
-            col = mk.trace_color_fused_diff(
-                scene, o, d, camera.far, sidx, seedb, settings)
+        out = tracer(scene, o, d, farb, sidx, seedb, settings)
+        if settings.debug_mode != DebugMode.NONE:
+            col = _debug_color(out, scene, d, farb, settings)
         else:
-            out = tracer(scene, o, d, farb, sidx, seedb, settings)
-            if settings.debug_mode != DebugMode.NONE:
-                col = _debug_color(out, scene, d, farb, settings)
-            else:
-                col = out.color
+            col = out.color
         return acc + col.reshape(n, spp_block, 3).sum(axis=1), None
 
     acc, _ = jax.lax.scan(
@@ -811,15 +788,13 @@ def render_pixels(
 def _morton_pixel_order(w: int, h: int):
     """Static Z-order (Morton) permutation of the pixel grid.
 
-    Rays are dispatched to kernel blocks in `pix` order, so this makes
-    every 128-lane row / 4096-ray block a spatially compact tile instead
-    of a scanline strip — the free coherence the raylet worklist tiers
-    rely on (granule round count = max per-ray candidates over the
-    granule, which stays near the per-ray mean only when granule rays
-    see similar geometry). Pure host-side numpy; the only runtime cost
-    is one gather at frame end to undo the permutation. Per-pixel
-    results are unchanged (each ray's math is independent of block
-    membership), so images are bit-identical to scanline order.
+    Rays are laid out in `pix` order, so this makes every contiguous run
+    of rays (a chunk, a wavefront block) a spatially compact tile instead
+    of a scanline strip: neighbouring rays see similar geometry. Pure
+    host-side numpy; the only runtime cost is one gather at frame end to
+    undo the permutation. Per-pixel results are unchanged (each ray's
+    math is independent of its slot), so images are bit-identical to
+    scanline order.
     """
     gy, gx = np.mgrid[0:h, 0:w].astype(np.uint64)
 

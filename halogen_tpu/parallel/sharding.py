@@ -2,7 +2,7 @@
 
 The reference is strictly single-GPU; its only scaling axis is
 frame-sequential progressive accumulation (`HalogenRenderPass.cs:307-353`).
-This module is the TPU-native inter-device tier built on XLA collectives:
+This module is the inter-device tier, built on XLA collectives:
 
 - a 2D device mesh over ("pixels", "spp") — the renderer's two natural
   data axes (the analog of dp x sp for an LLM stack);
@@ -17,9 +17,9 @@ This module is the TPU-native inter-device tier built on XLA collectives:
 - **gradient all-reduce**: the inverse-rendering train step psums material
   /envmap gradients across the mesh inside shard_map, overlapping XLA's
   collective schedule with backward compute;
-- multi-host: `init_distributed` wraps `jax.distributed.initialize`; ICI
-  carries intra-slice collectives, DCN inter-host — all expressed through
-  the same psum.
+- multi-host: `init_distributed` wraps `jax.distributed.initialize`; the
+  collectives are the same psum whether the devices share a host
+  (NVLink between the cards of one machine) or not.
 
 Determinism: per-pixel seeds hash the flat pixel id and sample indices are
 global, so the image is bitwise placement-invariant across mesh shapes.
@@ -35,16 +35,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-
-try:  # jax >= 0.8 top-level API; experimental path is deprecated
-    from jax import shard_map as _shard_map
-
-    def shard_map(f=None, **kw):  # adapt: check_rep was renamed check_vma
-        if "check_rep" in kw:
-            kw["check_vma"] = kw.pop("check_rep")
-        return _shard_map(f, **kw)
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 from halogen_tpu.config import RenderSettings
 from halogen_tpu.core.types import SceneData
@@ -120,11 +110,11 @@ def render_frame_sharded(
     cam_spec = jax.tree.map(lambda _: P(), camera)
 
     @partial(
-        shard_map,
+        jax.shard_map,
         mesh=mesh,
         in_specs=(scene_spec, cam_spec, P(), P("px")),
         out_specs=P("px"),
-        check_rep=False,
+        check_vma=False,
     )
     def _shard(scene, camera, frame, pix_local):
         lane = jax.lax.axis_index("spp").astype(jnp.uint32)
@@ -197,12 +187,12 @@ def loss_and_grads_sharded(
     cam_spec = jax.tree.map(lambda _: P(), camera)
 
     @partial(
-        shard_map,
+        jax.shard_map,
         mesh=mesh,
         in_specs=(par_spec, scene_spec, cam_spec, P(), P("px"), P("px"),
                   P("px")),
         out_specs=(P(), par_spec),
-        check_rep=False,
+        check_vma=False,
     )
     def _step(mat_params, scene, camera, frame, pix_local, tgt_local,
               valid_local):
@@ -211,7 +201,7 @@ def loss_and_grads_sharded(
         # Combine spp lanes BEFORE the loss so the objective is the MSE of
         # the full-spp estimate (identical to unsharded training, and
         # lower-variance than averaging per-lane MSEs). The collective sits
-        # inside autodiff; under check_rep=False JAX transposes psum/pmean
+        # inside autodiff; under check_vma=False JAX transposes psum/pmean
         # to psum, which hands every lane the FULL cotangent instead of its
         # 1/L share — the custom vjp pins the share explicitly so the final
         # psum("spp") of lane grads reconstructs the true gradient.

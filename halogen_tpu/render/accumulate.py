@@ -1,6 +1,6 @@
 """Progressive accumulation driver + checkpointing.
 
-TPU equivalent of the reference's render-pass state machine
+The equivalent of the reference's render-pass state machine
 (`HalogenRenderPass.cs:270-357` + `AccumulationShader.shader:27-34`): each
 step renders one frame and folds it into the running mean with weight
 1/FrameCount (an exact incremental mean), stopping after

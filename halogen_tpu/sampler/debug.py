@@ -1,6 +1,6 @@
 """Sampler distribution visualizer (component #5, SURVEY.md §2).
 
-TPU equivalent of `Debug/DebugSobol.compute` + `HalogenDebugger.cs`: plots
+The equivalent of `Debug/DebugSobol.compute` + `HalogenDebugger.cs`: plots
 N Owen-scrambled Sobol points through the Blackman-Harris inverse CDF into
 a 2D histogram image to visually validate the sampler and pixel-filter
 distributions (DebugSobol.compute:19-41 splats 100k samples around the

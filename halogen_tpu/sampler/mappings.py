@@ -1,6 +1,6 @@
 """Sample warps and the pixel reconstruction filter.
 
-TPU re-implementations of the warps in `Halogen Shaders/HalogenRandom.hlsl`:
+Vectorized re-implementations of the warps in `Halogen Shaders/HalogenRandom.hlsl`:
 uniform sphere direction (`:282-298`), uniform disc point (`:303-308`), and
 the Blackman-Harris filter + inverse-CDF approximation (`:314-330`).
 """
@@ -8,25 +8,12 @@ the Blackman-Harris filter + inverse-CDF approximation (`:314-330`).
 from __future__ import annotations
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from halogen_tpu.core.math import stack3
 
 _PI = np.float32(np.pi)
 _TWO_PI = np.float32(2.0 * np.pi)
-
-
-def _sincos(theta: jnp.ndarray):
-    """sin/cos evaluated behind an optimization barrier.
-
-    TPU rationale: when the results feed a `stack(..., axis=-1)`, XLA sinks
-    the transcendentals into the concatenate's [N, 1] slices, which get the
-    degenerate T(1,128) layout (1/8 sublane utilization — profiled at ~15%
-    of a Cornell frame). The barrier forces evaluation at the native [N]
-    layout; only the cheap relayout copy remains inside the stack.
-    """
-    return jax.lax.optimization_barrier((jnp.sin(theta), jnp.cos(theta)))
 
 
 def unit_vector_from_2d(u: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
@@ -36,7 +23,7 @@ def unit_vector_from_2d(u: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     cos_phi = 2.0 * v - 1.0
     # acos then sin/cos of phi == direct construction:
     sin_phi = jnp.sqrt(jnp.maximum(0.0, 1.0 - cos_phi * cos_phi))
-    sin_t, cos_t = _sincos(theta)
+    sin_t, cos_t = jnp.sin(theta), jnp.cos(theta)
     return stack3(sin_phi * cos_t, sin_phi * sin_t, cos_phi)
 
 
@@ -49,8 +36,7 @@ def point_in_circle(radius, u: jnp.ndarray, v: jnp.ndarray):
     """
     theta = u * _TWO_PI
     r = radius * v
-    sin_t, cos_t = _sincos(theta)
-    return cos_t * r, sin_t * r
+    return jnp.cos(theta) * r, jnp.sin(theta) * r
 
 
 def blackman_harris_filter(x: jnp.ndarray, width) -> jnp.ndarray:

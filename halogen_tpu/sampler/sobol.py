@@ -1,8 +1,8 @@
-"""Owen-scrambled Sobol low-discrepancy sampler on uint32 (TPU-native).
+"""Owen-scrambled Sobol low-discrepancy sampler on uint32.
 
 Re-implements the sampler contract of the reference's
 `Halogen Shaders/HalogenRandom.hlsl` with exact uint32 bit semantics so that
-CPU, TPU, and gradient-replay traces agree:
+CPU, GPU, and gradient-replay traces agree:
 
 - 4-dimensional Sobol direction table (`HalogenRandom.hlsl:10-46`, standard
   Joe-Kuo direction numbers) with higher dimensions padded by hashing.
@@ -22,7 +22,8 @@ standard low-discrepancy construction, and a requirement for sharding the
 spp axis across devices.
 
 All functions are stateless and vectorized: inputs are uint32 arrays of any
-(broadcastable) shape; everything lowers to VPU bitwise ops under jit.
+(broadcastable) shape; everything lowers to elementwise bitwise ops under
+jit.
 """
 
 from __future__ import annotations

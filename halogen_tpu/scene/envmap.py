@@ -1,6 +1,6 @@
 """Environment map: equirectangular radiance map with a mip pyramid.
 
-TPU redesign of the reference's environment cubemap + trilinear mip sampling
+A redesign of the reference's environment cubemap + trilinear mip sampling
 (`HalgoenCompute.compute:196-204`, imported 2048px cubemap per
 `resting_place_4k.exr.meta`): a single equirectangular [H, W, 3] texture
 avoids cubemap face-selection branching and keeps lookups as one gather.
@@ -13,7 +13,7 @@ luminance-CDF pdf tables.
 
 Also provides luminance CDF tables for envmap importance sampling — a
 capability the reference lists as TODO (`HalgoenCompute.compute:19` "Multiple
-Importance Sampling") but BASELINE.json asks for.
+Importance Sampling") and ladder config 3 (BASELINE.md) uses.
 """
 
 from __future__ import annotations
@@ -146,7 +146,7 @@ def sample_env(
     """Trilinear sample of the pyramid at per-ray float mip `level`.
 
     Bilinear within each mip plus a linear blend between the two mips
-    bracketing `level` — the TPU equivalent of the reference's hardware
+    bracketing `level` — the equivalent of the reference's hardware
     trilinear `SampleLevel` on the environment cubemap
     (HalgoenCompute.compute:196-204). Integer `level` inputs reduce to
     pure bilinear at that mip.
@@ -155,8 +155,7 @@ def sample_env(
     the per-ray tap indices address it directly, so each ray costs 8
     gathers (4 bilinear taps x 2 bracketing mips) regardless of pyramid
     depth — computing every mip's bilinear and masking (the obvious
-    branch-free form) was 3x the gather traffic and dominated
-    envmap-heavy frames on TPU (gathers, not FLOPs, are the cost).
+    branch-free form) is 3x the gather traffic.
     """
     if not env_mips:
         return jnp.zeros(direction.shape[:-1] + (3,), jnp.float32)
@@ -222,15 +221,12 @@ class EnvCDF(NamedTuple):
     Sampling uses Walker/Vose alias tables instead of inverse-CDF
     search: a draw is texel-index arithmetic plus two one-element table
     reads, where the CDF inversion needed a [W]-wide compare-and-sum
-    per draw — measured ~2.7 s/frame of pure VPU work on the ladder-3
-    config (84M draws x 128 lanes). The sampled distribution is exactly
-    the same solid-angle-weighted luminance measure.
+    per draw. The sampled distribution is exactly the same
+    solid-angle-weighted luminance measure.
 
-    `draw_static` fuses the per-draw table rows: XLA gather cost on v5e
-    is per ROW, not per element (measured: a [T]->[N] scalar gather and
-    a [T,16]->[N,16] slice gather both run ~0.15 Grow/s, while separate
-    scalar gathers pay the full cost each), so the draw's four lookups
-    (alias_p, alias_j, stay-pdf, alias-pdf) ride ONE row gather; the
+    `draw_static` fuses the per-draw table rows, so the draw's four
+    lookups (alias_p, alias_j, stay-pdf, alias-pdf) ride ONE row gather
+    of contiguous memory instead of four scattered ones; the
     radiance of both branches is appended inside the traced function
     (sample_env_draw) so envmap gradients still flow.
     """
@@ -315,8 +311,7 @@ def sample_env_draw(cdf: EnvCDF, env0: jnp.ndarray, u1, u2):
 
     Fuses what took four separate gathers per (ray, bounce) —
     alias_p[idx], alias_j[idx], pdf[texel], env0[texel] — into ONE
-    [T, 10] row gather (per-row gather cost dominates on v5e; this is
-    the measured 4x on the ladder-3 NEE precompute). The radiance
+    [T, 10] row gather of contiguous memory. The radiance
     columns come from `env0` (the finest mip) inside the traced
     function, so d(radiance)/d(env_mips) still flows; radiance is the
     exact texel value (the former `sample_env_mip_nearest(env0, dir)`
@@ -348,8 +343,8 @@ def pack_footprint(mip: jnp.ndarray) -> jnp.ndarray:
     """[H, W, 3] mip -> [H*W, 12] bilinear-footprint rows: the 2x2 texel
     quad anchored at (y, x) with azimuth wrap on x and pole clamp on y
     baked in, so one row gather serves a whole bilinear tap (4 taps of
-    3 gathered elements each -> 1 row; per-row gather cost dominates on
-    v5e). Pure jnp so envmap gradients flow through the packing."""
+    3 gathered elements each -> 1 contiguous row). Pure jnp so envmap
+    gradients flow through the packing."""
     xp = jnp.roll(mip, -1, axis=1)          # (x+1 mod W, y)
     yc = jnp.concatenate([mip[1:], mip[-1:]], axis=0)    # (x, min(y+1,H-1))
     xyc = jnp.concatenate([xp[1:], xp[-1:]], axis=0)

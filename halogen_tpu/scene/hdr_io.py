@@ -365,3 +365,10 @@ def procedural_hdri(width: int = 2048, seed: int = 11) -> np.ndarray:
             * np.sin(octv * theta + ph[1])[..., None] \
             * (d[..., 1:2] > 0)
     return np.maximum(img, 0.0).astype(np.float32)
+
+
+def write_stand_in_exr(path: str, width: int = 2048) -> None:
+    """Write the procedural resting_place_4k stand-in (`procedural_hdri`)
+    to an EXR file, so configurations that import the reference's
+    2048-px HDRI go through the real file loader (`load_envmap`)."""
+    write_exr(path, procedural_hdri(width))

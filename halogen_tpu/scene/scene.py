@@ -87,8 +87,7 @@ class Scene:
 
     # -- packing ---------------------------------------------------------
     def build(self, envmap: Optional[object] = None,
-              max_leaf: int = MAX_LEAF_TRIS,
-              world_bvh: bool = True) -> SceneData:
+              max_leaf: int = MAX_LEAF_TRIS) -> SceneData:
         materials: List[Material] = []
 
         def material_index(m: Material) -> int:
@@ -161,44 +160,6 @@ class Scene:
         mat_table = _pack_materials(materials)
 
         tv_world_cat = cat(tv_world, (0, 3, 3))
-        wbvh = None
-        tbvh = None
-        fbvh = None
-        rbvh = None
-        if world_bvh and tv_world_cat.shape[0] > 0:
-            from halogen_tpu.kernels.bvh_pallas import pack_world_bvh_auto
-            from halogen_tpu.kernels.flatlet import (
-                FLATLET_MAX_TRIS,
-                pack_flatlets,
-            )
-            from halogen_tpu.kernels.raylet import (
-                RAYLET_MAX_TRIS,
-                pack_raylets,
-            )
-            from halogen_tpu.kernels.treelet_bvh import (
-                TREELET_MAX_TRIS,
-                pack_treelet_bvh,
-            )
-
-            wbvh = pack_world_bvh_auto(tv_world_cat, max_leaf=max_leaf)
-            if tv_world_cat.shape[0] <= TREELET_MAX_TRIS:
-                tbvh = pack_treelet_bvh(
-                    tv_world_cat, max_leaf=max_leaf,
-                    tri_normals_world=cat(tn_world, (0, 3, 3)),
-                    tri_materials=cat(tri_mat, (0,), np.int32).astype(
-                        np.float32))
-            # Flatlet tables cost up to ~21 MB of device arrays; scenes
-            # small enough that AUTO routes them to BRUTE (or that one
-            # treelet covers) never read them, so gate on size.
-            if 128 < tv_world_cat.shape[0] <= FLATLET_MAX_TRIS:
-                fbvh = pack_flatlets(tv_world_cat, max_leaf=max_leaf)
-                if tv_world_cat.shape[0] <= RAYLET_MAX_TRIS:
-                    # raylet shares the flatlet cut (one BVH build)
-                    rbvh = pack_raylets(
-                        tv_world_cat, fbvh=fbvh,
-                        tri_normals_world=cat(tn_world, (0, 3, 3)),
-                        tri_materials=cat(tri_mat, (0,), np.int32).astype(
-                            np.float32))
 
         from halogen_tpu.scene.lights import build_light_table
 
@@ -247,10 +208,6 @@ class Scene:
             lights=lights,
             tri_light_pdf_area=jnp.asarray(tri_light_pdf),
             sphere_light_sel=jnp.asarray(sphere_light_sel),
-            wbvh=wbvh,
-            tbvh=tbvh,
-            fbvh=fbvh,
-            rbvh=rbvh,
             # Static: any material that can refract (transmission alpha < 1)?
             # False lets the integrator skip the nested-dielectric stack
             # machinery — it is provably a no-op in fully opaque scenes.

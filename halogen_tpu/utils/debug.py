@@ -1,4 +1,4 @@
-"""Numerical debugging (SURVEY.md §5.2): the TPU build's substitute for
+"""Numerical debugging (SURVEY.md §5.2): this build's substitute for
 race detection/sanitizers — the renderer is functionally pure, so the
 failure modes that matter are NaN/Inf leaks and nondeterminism, checked
 directly."""

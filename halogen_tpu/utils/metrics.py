@@ -1,6 +1,6 @@
 """Observability: throughput meter, render statistics, structured logging.
 
-TPU equivalent of the reference's perf HUD + Debug.Log side channel
+The equivalent of the reference's perf HUD + Debug.Log side channel
 (SURVEY.md §5.1/5.5): `HalogenDebugUI.cs:37-94` keeps a rolling 1-second
 window of per-frame ray counts (rays = SPP * W * H,
 `HalogenRenderFeature.cs:97`) and displays MRays/s plus the accumulated

@@ -1,4 +1,4 @@
-"""Profiling hooks (SURVEY.md §5.1 — TPU equivalent of the reference's
+"""Profiling hooks (SURVEY.md §5.1 — the equivalent of the reference's
 ProfilingScope + RenderDoc workflow): jax.profiler trace capture around
 render calls, plus a timed-section helper feeding the metrics logger."""
 

@@ -5,31 +5,38 @@ and test renders go through the same compiler:
 
     JAX_PLATFORMS=cpu python scripts/gen_goldens.py
 
-Goldens are small float32 frames of the BASELINE.json ladder fixtures
-(SURVEY.md §4b: "golden-image integration tests on the BASELINE.json
-configs"). They are committed to tests/golden/ and compared with a loose
-tolerance so benign cross-version float drift does not trip them while
-real transport regressions (sign flips, wrong walls, broken NEE) do.
+`configs()` and `TOLERANCES` are imported by tests/test_golden.py and by
+chip_smoke.py (which holds GPU renders to the same bounds), so importing
+this module selects no backend.
+
+Goldens are small float32 frames of the ladder fixtures (BASELINE.md;
+SURVEY.md §4b: "golden-image integration tests on the ladder configs").
+They are committed to tests/golden/ and compared with a loose tolerance
+so benign cross-version float drift does not trip them while real
+transport regressions (sign flips, wrong walls, broken NEE) do.
 """
 
-import os
 import pathlib
 import sys
 
-os.environ.setdefault(
-    "XLA_FLAGS",
-    os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8",
-)
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-import numpy as np  # noqa: E402
+import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import halogen_tpu as ht  # noqa: E402
+
+# (mae, worst-pixel) tolerance of a render against its golden. The
+# testing_composite fixture contains the reference's giant
+# transparent/emissive OutdoorsScene spheres that enclose the whole world
+# — single-path fireflies there can exceed 10, so a 1-ulp compiler drift
+# that reroutes one path moves one pixel by O(emission); the MAE bound
+# still catches real transport regressions (which shift many pixels), the
+# worst-pixel bound is relaxed.
+DEFAULT_TOLERANCE = (5e-3, 0.15)
+TOLERANCES = {
+    "testing_composite": (2e-2, 16.0),
+    "testing_active": (5e-3, 1.0),
+}
 
 
 def configs():
@@ -128,4 +135,7 @@ def main():
 
 
 if __name__ == "__main__":
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
     main()

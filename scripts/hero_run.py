@@ -1,18 +1,18 @@
 """BASELINE ladder config 5 end-to-end: the dragons hero scene at 4096
 accumulated spp, rendered through the SHARDED path, plus one sharded
-inverse-rendering gradient step — a single committed artifact
-(perf/hero_run.json + renders/hero.png).
+inverse-rendering gradient step. Writes perf/hero_run.json (one JSON line
+per run, naming the backend) and renders/hero.png.
 
 The scene uses the reference's real Dragon_8k geometry (three instances,
 mixed materials) under the gradient sky. Rendering goes through
 `parallel.sharding.render_frame_sharded` over a ("px","spp") mesh —
-1x1 on the single real chip (exercising the same shard_map program the
-pod would run), or the 8-device virtual CPU mesh with `--small` for the
-multi-device proof. The gradient step runs `diff.grad.fit_materials`
+over every GPU of the host (1x1 on one card, exercising the same
+shard_map program four cards run), or the 8-device virtual CPU mesh with
+`--small` for the multi-device proof. The gradient step runs `diff.grad.fit_materials`
 with `mesh=` (the unified optax+projection trainer, psum'd grads).
 
 Usage:
-    python scripts/hero_run.py                    # TPU, full hero config
+    python scripts/hero_run.py                    # GPU, full hero config
     python scripts/hero_run.py --small            # CPU 8-dev mesh, tiny
 """
 
@@ -104,10 +104,9 @@ def main():
     except ImportError:
         np.savez_compressed(out_dir / "hero.npz", image=acc_np)
 
-    # one sharded inverse-rendering gradient step against the render.
-    # The step runs at a reduced size: the path-replay backward for a
-    # 26k-tri scene uses the dense BRUTE intersector (the only
-    # reverse-differentiable traversal), whose cost is O(rays x tris).
+    # one sharded inverse-rendering gradient step against the render,
+    # at a reduced size to keep the step short (the backward replays
+    # every bounce's BVH walk).
     fit_w = min(width, 128)
     fit_st = st.replace(width=fit_w, height=fit_w,
                         samples_per_pixel=max(spp_frame // 8, 2),

@@ -9,7 +9,7 @@ camera-moved? branch of Execute :279-291), accumulates `--frames`
 progressive frames, and records the image. Emits a horizontal contact
 strip PNG and an animated GIF.
 
-Run on the TPU:  python scripts/turntable.py --scene glass_dragon
+Run on a GPU:    python scripts/turntable.py --scene glass_dragon
 Artifacts:       renders/turntable_<scene>.png / .gif
 """
 

@@ -23,9 +23,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 def main():
     import jax
-
-    if jax.default_backend() != "cpu" and "--tpu" not in sys.argv:
-        pass  # run wherever; results record the backend
     import numpy as np
     import jax.numpy as jnp
     import halogen_tpu as ht

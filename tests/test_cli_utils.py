@@ -45,7 +45,8 @@ def test_cli_render_and_bench(tmp_path, capsys):
     line = [l for l in capsys.readouterr().out.splitlines()
             if l.startswith("{")][-1]
     rec = json.loads(line)
-    assert set(rec) == {"metric", "value", "unit", "vs_baseline"}
+    assert set(rec) == {"metric", "value", "unit", "device"}
+    assert rec["device"]["platform"] == "cpu"
     assert rec["value"] > 0
 
 

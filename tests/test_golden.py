@@ -1,6 +1,6 @@
 """Pixel-level golden-image regression tests (SURVEY.md §4b).
 
-Each BASELINE.json ladder fixture (diffuse Cornell, glossy+DoF Cornell,
+Each ladder fixture (BASELINE.md) (diffuse Cornell, glossy+DoF Cornell,
 envmap-NEE demo, nested-dielectric glass box) is rendered at 64^2 and
 compared against a committed golden frame (tests/golden/*.npz, produced
 by scripts/gen_goldens.py on the same CPU backend these tests run on).
@@ -18,33 +18,26 @@ import pytest
 GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
 
 
-def _configs():
+def _gen_goldens():
     import sys
 
     scripts = pathlib.Path(__file__).resolve().parents[1] / "scripts"
     sys.path.insert(0, str(scripts))
     try:
-        from gen_goldens import configs
+        import gen_goldens
     finally:
         sys.path.remove(str(scripts))
-    return configs()
+    return gen_goldens
 
 
 @pytest.fixture(scope="module")
-def golden_configs():
-    return _configs()
+def gen_goldens():
+    return _gen_goldens()
 
 
-# (mae, worst-pixel) tolerances. The testing_composite fixture contains
-# the reference's giant transparent/emissive OutdoorsScene spheres that
-# enclose the whole world — single-path fireflies there can exceed 10,
-# so a 1-ulp compiler drift that reroutes one path moves one pixel by
-# O(emission); the MAE bound still catches real transport regressions
-# (which shift many pixels), the worst-pixel bound is relaxed.
-TOLS = {
-    "testing_composite": (2e-2, 16.0),
-    "testing_active": (5e-3, 1.0),
-}
+@pytest.fixture(scope="module")
+def golden_configs(gen_goldens):
+    return gen_goldens.configs()
 
 
 @pytest.mark.parametrize(
@@ -52,7 +45,7 @@ TOLS = {
              "glass_box", "testing_composite", "testing_active"],
 )
 @pytest.mark.slow
-def test_golden_image(name, golden_configs):
+def test_golden_image(name, gen_goldens, golden_configs):
     import halogen_tpu as ht
 
     path = GOLDEN_DIR / f"{name}.npz"
@@ -66,7 +59,8 @@ def test_golden_image(name, golden_configs):
 
     assert img.shape == golden.shape
     assert np.isfinite(img).all()
-    mae_tol, worst_tol = TOLS.get(name, (5e-3, 0.15))
+    mae_tol, worst_tol = gen_goldens.TOLERANCES.get(
+        name, gen_goldens.DEFAULT_TOLERANCE)
     # Mean absolute error across the frame: catches broad shifts.
     mae = np.abs(img - golden).mean()
     assert mae < mae_tol, f"{name}: MAE {mae} vs golden"

@@ -73,6 +73,24 @@ def test_albedo_gradient_fd(scene, target):
     _fd_check(scene, ST_FD, "albedo", [(r, 0) for r in rows], target)
 
 
+def test_gradients_through_bvh_walk_match_brute(scene, target):
+    """Reverse mode passes the BVH traversal's while_loop (its carry holds
+    no differentiated value): material gradients equal the brute-force
+    intersector's."""
+    from halogen_tpu.config import Intersector
+
+    params = {"materials": scene.materials}
+    grads = [
+        render_loss_grad(params, scene, CAM, ST.replace(intersector=it),
+                         target, 1)[1]["materials"]
+        for it in (Intersector.BRUTE, Intersector.BVH)
+    ]
+    for field in ("albedo", "emissive"):
+        a, b = (np.asarray(getattr(g, field)) for g in grads)
+        assert np.abs(a).max() > 0
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
+
+
 @pytest.mark.slow
 def test_absorption_gradient_fd(target):
     s = Scene()

@@ -17,6 +17,7 @@ from halogen_tpu.scene.hdr_io import (
     read_hdr,
     write_exr,
     write_hdr,
+    write_stand_in_exr,
 )
 
 
@@ -60,6 +61,19 @@ def test_load_envmap_dispatch(tmp_path, hdri_small):
         load_envmap(str(tmp_path / "sky.png"))
 
 
+def test_stand_in_exr_roundtrip(tmp_path):
+    """The stand-in EXR file loads back as the procedural sky it was
+    written from (half-float storage), as a 2:1 equirect envmap."""
+    p = tmp_path / "stand_in.exr"
+    write_stand_in_exr(str(p), width=128)
+    back = read_exr(str(p))
+    want = procedural_hdri(128)
+    assert back.shape == (64, 128, 3)
+    np.testing.assert_allclose(back, want, rtol=1e-3, atol=1e-3)
+    env = load_envmap(str(p), num_mips=2)
+    assert env.mips[0].shape == (64, 128, 3)
+
+
 @pytest.mark.slow
 def test_render_with_file_hdri_2048(tmp_path):
     """One envmap config renders from a >=2048-px HDRI file on disk —
@@ -67,9 +81,8 @@ def test_render_with_file_hdri_2048(tmp_path):
     import halogen_tpu as ht
     from halogen_tpu.scene.meshes import outdoors_scene
 
-    hdri = procedural_hdri(2048)
     p = tmp_path / "resting_stand_in_2k.exr"
-    write_exr(str(p), hdri)
+    write_stand_in_exr(str(p))
     env = load_envmap(str(p))
     scene = outdoors_scene().build(envmap=env)
     cam = ht.make_camera(position=(0.0, 0.6, 7.0), target=(0, -0.4, 0),

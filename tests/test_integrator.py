@@ -80,6 +80,59 @@ def test_cornell_golden_statistics():
     assert img[-6:, 8:-8].mean() > img[8:16, 8:-8].mean()
 
 
+@pytest.mark.parametrize("intersector", [Intersector.BRUTE,
+                                         Intersector.BVH])
+def test_sphere_priority(intersector):
+    """Sphere in front of a mesh: the sphere must win under either
+    intersector, and the mesh must show around it."""
+    s = Scene()
+    s.add_mesh(
+        np.array([(-2, -2, -1), (2, -2, -1), (2, 2, -1), (-2, 2, -1)],
+                 np.float32),
+        np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+        Material.emissive((0, 1, 0), 1.0),
+    )
+    s.add_sphere((0, 0, 0.5), 0.4, Material.emissive((1, 0, 0), 1.0))
+    cam = ht.make_camera(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40)
+    st = ht.RenderSettings(width=24, height=24, samples_per_pixel=1,
+                           max_bounces=0, ray_chunk_size=576,
+                           intersector=intersector)
+    img = _render(s.build(), st, cam)
+    center = img[12, 12]
+    assert center[0] > 0.9 and center[1] < 0.1  # sphere (red) wins
+    corner = img[1, 1]
+    assert corner[1] > 0.9  # wall (green) visible around it
+
+
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+@pytest.mark.parametrize("num_tris,threshold,expect", [
+    (2, 4096, "brute"), (2, 1, "bvh")])
+def test_auto_intersector_depends_on_triangle_count_only(
+        monkeypatch, backend, num_tris, threshold, expect):
+    """AUTO picks BRUTE up to brute_force_max_tris and the BVH walk above
+    it, whatever backend JAX reports."""
+    import jax
+    from halogen_tpu.integrator import intersect
+
+    called = []
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    monkeypatch.setattr(intersect, "intersect_brute",
+                        lambda *a, **k: called.append("brute"))
+    monkeypatch.setattr(intersect, "intersect_bvh",
+                        lambda *a, **k: called.append("bvh"))
+    s = Scene()
+    s.add_mesh(np.array([(0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0)],
+                        np.float32),
+               np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+               Material.diffuse((1.0, 1.0, 1.0)))
+    scene = s.build()
+    assert scene.num_triangles == num_tris
+    o = jnp.zeros((4, 3), jnp.float32)
+    intersect.intersect_scene(scene, o, o, jnp.ones((4,)),
+                              BASE.replace(brute_force_max_tris=threshold))
+    assert called == [expect]
+
+
 @pytest.mark.slow
 def test_brute_and_bvh_render_identically():
     scene = cornell.cornell_box().build()

@@ -234,3 +234,36 @@ def test_procedural_glossy_pdf_is_a_density():
         m = pp > pp.max() * 0.05
         ratio = emp[m] / pp[m]
         assert (np.abs(ratio - 1.0) < 0.25).all(), (a, ratio)
+
+
+@pytest.mark.parametrize("k", [5, 300])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_gather_rows_matches_take_with_zero_rows(k, dtype):
+    """gather_rows == np.take for valid ids; a negative id or one past the
+    table gives an all-zero row (no wrap-around)."""
+    rng = np.random.default_rng(k)
+    table = (rng.normal(size=(k, 3, 2)) * 100).astype(dtype)
+    idx = np.concatenate([rng.integers(0, k, size=64), [-1, -k, k, k + 7]])
+    got = np.asarray(gm.gather_rows(jnp.asarray(table),
+                                    jnp.asarray(idx, jnp.int32)))
+    assert got.dtype == table.dtype
+    np.testing.assert_array_equal(got[:64], np.take(table, idx[:64], axis=0))
+    np.testing.assert_array_equal(got[64:], 0)
+
+
+@pytest.mark.parametrize("k", [5, 300])
+def test_gather_rows_gradient_is_segment_sum(k):
+    """The gradient w.r.t. the table adds each row's cotangents (dense
+    one-hot transpose for small tables, scatter-add for big ones); ids
+    outside the table contribute nothing."""
+    import jax
+
+    rng = np.random.default_rng(1)
+    table = jnp.asarray(rng.normal(size=(k, 4)), jnp.float32)
+    idx = np.concatenate([rng.integers(0, k, size=200), [-1, k]])
+    w = rng.normal(size=(idx.size, 4)).astype(np.float32)
+    g = jax.grad(lambda t: jnp.sum(
+        gm.gather_rows(t, jnp.asarray(idx, jnp.int32)) * w))(table)
+    want = np.zeros((k, 4), np.float64)
+    np.add.at(want, idx[:200], w[:200])
+    np.testing.assert_allclose(np.asarray(g), want, rtol=1e-5, atol=1e-5)
